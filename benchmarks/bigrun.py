@@ -5,12 +5,12 @@ The reference claims ~100,000,000 points feasible on a laptop
 ~250M-position WGS chromosome. This harness drives the REAL CLI front door
 (bin/hammlet) on a T-position synthetic WGS file with marginals output,
 records wall times per stage plus the CLI-reported sweep throughput, and
-writes BENCH_bigrun<T/1M>_r05.json at the repo root.
+writes chiprun_out/bigrun<T/1M>.json (data in .bench/, both gitignored).
 
 Usage:  timeout 7200 python -u benchmarks/bigrun.py
 Env:    HAMMLET_BIGRUN_T       (default 100_000_000)
         HAMMLET_BIGRUN_SCHEME  (default "M 64 0 F 100 4")
-        HAMMLET_BIGRUN_OUT     (default BENCH_bigrun<T/1M>_r05.json)
+        HAMMLET_BIGRUN_OUT     (default chiprun_out/bigrun<T/1M>.json)
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def write_data(path: str, T: int, seglen: int = 500) -> None:
 def main() -> int:
     T = int(os.environ.get("HAMMLET_BIGRUN_T", 100_000_000))
     scheme = os.environ.get("HAMMLET_BIGRUN_SCHEME", "M 64 0 F 100 4").split()
-    workdir = "/tmp/hammlet_bigrun"
+    workdir = os.path.join(REPO, ".bench", "bigrun")
     os.makedirs(workdir, exist_ok=True)
     data_file = os.path.join(workdir, f"wgs_{T}.csv")
     if not os.path.exists(data_file):
@@ -118,13 +118,16 @@ def main() -> int:
         "burnin_note": "burn-in chunks above the capacity ceiling run "
         "TRUNCATED to the top-capacity ranked weights (runner._MAX_CAPACITY"
         "; recording sweeps are never truncated) — this bounds the "
-        "transient HBM working set that OOMed T>=250M in round 4",
+        "transient device-memory working set of the ~T-block burn-in",
     }
     print(json.dumps(out), flush=True)
     name = os.environ.get(
-        "HAMMLET_BIGRUN_OUT", f"BENCH_bigrun{T // 1_000_000}_r05.json"
+        "HAMMLET_BIGRUN_OUT",
+        os.path.join("chiprun_out", f"bigrun{T // 1_000_000}.json"),
     )
-    json.dump(out, open(os.path.join(REPO, name), "w"), indent=1)
+    path = os.path.join(REPO, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    json.dump(out, open(path, "w"), indent=1)
     return 0
 
 

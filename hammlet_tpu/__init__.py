@@ -1,8 +1,8 @@
-"""hammlet_tpu — a TPU-native framework for wavelet-compressed Forward-Backward
-Gibbs sampling of Bayesian Hidden Markov Models.
+"""hammlet_tpu — a JAX framework for wavelet-compressed Forward-Backward
+Gibbs sampling of Bayesian Hidden Markov Models, run on NVIDIA GPUs.
 
 Re-implements the full capability surface of HaMMLET (Wiedenhoeft et al., 2016;
-reference C++ at /root/reference) as an idiomatic JAX/XLA/Pallas framework:
+reference C++ implementation) as an idiomatic JAX/XLA framework:
 
 - Haar maxlet transform + breakpoint weights as batch level-wise kernels
   (bit-exact vs the reference's streaming transform, src/wavelet.hpp:98-188).

@@ -3,8 +3,8 @@
 The reference guards its numerics with runtime_error throws: finiteness/
 positivity on every parameter setter (Observation.hpp:374-392), negative
 backward variables (ForwardBackward.hpp:147-149), and the marginal-sum
-invariant at save (StateMarginals.hpp:306-308). Inside jitted TPU programs
-a NaN would otherwise propagate silently into wrong marginals.
+invariant at save (StateMarginals.hpp:306-308). Inside jitted device
+programs a NaN would otherwise propagate silently into wrong marginals.
 
 Equivalent here:
 - HAMMLET_DEBUG=1 (default ON under pytest via tests/conftest.py) compiles

@@ -132,8 +132,8 @@ class Records:
     ) -> None:
         """Record a whole scan chunk of recorded sweeps at once: (R, cap)
         block states/sizes + per-sweep block counts. Formatting ~capacity
-        integers per sweep in Python costs more than the TPU sweep itself
-        (measured 150 vs 698 sweeps/s all-streams), so the CSV bytes are
+        integers per sweep in Python costs more than the device sweep
+        itself, so the CSV bytes are
         produced by the native batch formatters when the C++ library is
         built (byte-identical to the per-sweep path, which remains the
         fallback)."""

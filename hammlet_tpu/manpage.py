@@ -2,9 +2,9 @@
 
 The reference embeds its full manpage in the binary (a generated hexdump of
 doc/hammlet-manpage.txt, src/hammlet-manpage.hpp, shown at main.cpp's -h
-branch). This is the equivalent for the TPU framework: the complete flag
-grammar, the sampling-scheme DSL, all output formats, and the TPU-specific
-extensions, written for this implementation.
+branch). This is the equivalent for this framework: the complete flag
+grammar, the sampling-scheme DSL, all output formats, and the extensions
+this implementation adds.
 """
 
 MANPAGE = r"""
@@ -13,7 +13,7 @@ HAMMLET(1)                        User Commands                       HAMMLET(1)
 NAME
     hammlet - Fast Bayesian HMM segmentation of very long 1-D data using
     forward-backward Gibbs sampling over dynamically compressed wavelet
-    blocks (TPU-native implementation).
+    blocks (JAX implementation for GPU device meshes).
 
 SYNOPSIS
     hammlet [-f FILE...] [-s [C] P [D]] [-e normal VAR P] -a
@@ -124,7 +124,7 @@ OPTIONS
         T = 0 records nothing. An implicit P precedes the program.
         Default: M 500 0 S P F 200 0 F 300 3.
 
-  TPU-framework extensions (not in the reference)
+  Extensions (not in the reference)
     -C, -checkpoint PATH [EVERY]
         Write a resumable checkpoint (RNG counter, model iterate, marginal
         counts, scheme cursor) to PATH every EVERY sweeps (default 100).

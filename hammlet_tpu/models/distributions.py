@@ -13,6 +13,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+#: the emission products below carry sums of up to ~10^5-10^8 values per
+#: block, and ip = a * sum_x - b * sum_x2 cancels two large terms: TF32
+#: input rounding (~5e-4 relative, what a GPU may use at default
+#: precision) would be an error of tens of nats, so they pin full float32
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def nig_update(prior: jax.Array, sums: jax.Array, sumsqs: jax.Array, counts: jax.Array) -> jax.Array:
     """Batch Normal-Inverse-Gamma conjugate update.
@@ -59,9 +65,9 @@ def gamma_fixed_tries(
     sampler (no lax.while_loop).
 
     ``jax.random.gamma``'s rejection loop is a sequential while_loop whose
-    latency dominated the per-sweep conjugate model update on TPU (~3 ms for
-    ~15 variates). Marsaglia-Tsang squeeze acceptance is >= 0.95 per try for
-    alpha >= 1, so ``tries`` independent proposals leave a < 1e-10
+    latency dominated the per-sweep conjugate model update (a data-dependent
+    loop serializes ~15 tiny variates into many dependent device steps).
+    Marsaglia-Tsang squeeze acceptance is >= 0.95 per try for alpha >= 1, so ``tries`` independent proposals leave a < 1e-10
     probability of total rejection; the (then unbiased-to-float-precision)
     fallback is the distribution mode. alpha < 1 uses the standard
     alpha+1 boost: G(a) = G(a+1) * U^(1/a).
@@ -139,7 +145,9 @@ def emission_log_weights(
     C = jnp.sum(c[mapping], axis=1)  # (K,)
     sums = block_stats[..., 0]  # (B, dim)
     sumsqs = block_stats[..., 1]
-    ip = sums @ A.T - sumsqs @ Bc.T  # (B, K)
+    ip = jnp.dot(sums, A.T, precision=_HIGHEST) - jnp.dot(
+        sumsqs, Bc.T, precision=_HIGHEST
+    )  # (B, K)
     return ip - sizes.astype(jnp.float32)[:, None] * C[None, :]
 
 
@@ -152,9 +160,8 @@ def emission_log_weights_t(
 ) -> jax.Array:
     """emission_log_weights in transposed layout: block_stats_t is
     (dim, 2, B) (ops.blocks.block_sufficient_stats_t) and the result is
-    (K, B) — block axis minor everywhere (TPU-tile friendly; a (B, K)
-    array with K small pads K -> 128 lanes, and a (B, dim, 2) stat array
-    pads its minor 2 to 128)."""
+    (K, B) — block axis minor everywhere, so the long axis is the
+    contiguous one and no small K or dim axis is strided over."""
     a = theta_mean / theta_var
     b = 0.5 / theta_var
     c = 0.5 * jnp.log(theta_var) + theta_mean**2 * b
@@ -164,8 +171,12 @@ def emission_log_weights_t(
     sums_t = block_stats_t[:, 0, :]  # (dim, B)
     sumsqs_t = block_stats_t[:, 1, :]
     ip = jnp.einsum(
-        "kd,db->kb", A, sums_t, preferred_element_type=jnp.float32
-    ) - jnp.einsum("kd,db->kb", Bc, sumsqs_t, preferred_element_type=jnp.float32)
+        "kd,db->kb", A, sums_t,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
+    ) - jnp.einsum(
+        "kd,db->kb", Bc, sumsqs_t,
+        preferred_element_type=jnp.float32, precision=_HIGHEST,
+    )
     return ip - C[:, None] * sizes.astype(jnp.float32)[None, :]
 
 

@@ -1,7 +1,7 @@
 """Haar maxlet transform and breakpoint weights as batch JAX kernels.
 
 The reference computes these with a streaming stack in one sequential pass
-(reference: src/wavelet.hpp:98-188 and :68-93). On TPU the same quantities are
+(reference: src/wavelet.hpp:98-188 and :68-93). Here the same quantities are
 computed as log2(T) data-parallel levels of pairwise float32 ops, which
 reproduces the streaming version's pairwise-dyadic summation order *exactly*
 (bit-exact float32), because both perform the identical tree of adds.
@@ -17,8 +17,6 @@ Semantics:
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import jax
@@ -38,8 +36,8 @@ def _level_normalizers(n_levels: int) -> list[np.float32]:
     return norms
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def maxlet_transform(data: jax.Array, interpret: bool = False) -> jax.Array:
+@jax.jit
+def maxlet_transform(data: jax.Array) -> jax.Array:
     """data: (T,) or (T, dim) float32 -> coeffs (T,) float32."""
     if data.ndim == 1:
         data = data[:, None]
@@ -55,8 +53,10 @@ def maxlet_transform(data: jax.Array, interpret: bool = False) -> jax.Array:
         right = sums[1 : 2 * n_pairs : 2]
         detail = jnp.max(norms[level - 1] * jnp.abs(left - right), axis=1)
         # node a covers [a*2^l, (a+1)*2^l); after tail-dropping every kept
-        # node is complete, and its coefficient index a*2^l + 2^(l-1) < T
-        idx = (np.arange(n_pairs) << level) + (1 << (level - 1))
+        # node is complete, and its coefficient index a*2^l + 2^(l-1) < T.
+        # On-device iota, not np.arange: a host index array would embed
+        # ~T int64 constants in the HLO over all levels.
+        idx = (jax.lax.iota(jnp.int32, n_pairs) << level) + (1 << (level - 1))
         coeffs = coeffs.at[idx].set(detail)
         sums = left + right  # pairwise-dyadic float32 adds (exact ref order)
         level += 1
@@ -79,8 +79,8 @@ def breakpoint_weights(coeffs: jax.Array) -> jax.Array:
     current values at multiples of 2I (a (p/2I,) array), interleaved with
     the raw centers after each level. A full-length formulation updated two
     (T,) arrays per level via scatters, which XLA kept live across all
-    log2(T) levels — the compiled program wanted 15.9 GB HBM at T=64M; the
-    pyramid peaks at ~4 T-sized buffers.
+    log2(T) levels (O(T log T) device memory); the pyramid peaks at ~4
+    T-sized buffers.
     """
     T = coeffs.shape[0]
     p = 1
@@ -94,8 +94,8 @@ def breakpoint_weights(coeffs: jax.Array) -> jax.Array:
         m = cpad[interval::I2]  # raw centers: odd multiples of I, (p/I2,)
         nm = m.shape[0]  # == A.shape[0] == p // I2
         # masks via on-device iota: np.arange-derived masks embed (p/I2,)
-        # CONSTANT LITERALS in the HLO — ~134 MB at T=250M, which crashed
-        # the remote TPU compiler outright
+        # CONSTANT LITERALS in the HLO — ~134 MB at T=250M, which the
+        # compiler has to hold and fold
         kj = jax.lax.iota(jnp.int32, nm)
         center_pos = (2 * kj + 1) * jnp.int32(interval)  # < p <= 2^30: int32-safe
         # node exists iff its center is a data position; its right edge
@@ -114,9 +114,8 @@ def breakpoint_weights(coeffs: jax.Array) -> jax.Array:
         newA = jnp.maximum(newA, right_shift)
         new_m = jnp.where(cond | ~activej, m, jnp.inf)
         # interleave: position 2j*I = newA[j], (2j+1)*I = new_m[j].
-        # Gather + parity select keeps every array 1-D: a (n, 2) stack-
-        # reshape pads 64x per TPU tile ((8, 128) tiling of the minor 2),
-        # which is a 15.3 GB HLO temp at T=64M.
+        # Gather + parity select keeps every array 1-D (no (n, 2) stack-
+        # reshape with a size-2 minor dimension).
         n2 = 2 * nm
         j = jax.lax.iota(jnp.int32, n2) >> 1
         parity = (jax.lax.iota(jnp.int32, n2) & 1) == 1

@@ -220,7 +220,7 @@ def _gather_shard_payloads(mesh, payloads: dict[int, np.ndarray]) -> np.ndarray:
     ``payloads`` maps shard index -> array for each shard whose device is
     process-local. Returns the (n_shards, *payload_shape) array, identical
     on every process. float64 payloads travel bit-exactly as int32 views
-    (CPU/TPU device buffers are float32-only without x64). Single-process
+    (device buffers are float32-only without x64). Single-process
     this is one device round-trip of O(n_shards * payload) bytes."""
     devices = mesh.devices.reshape(-1)
     sample = next(iter(payloads.values()))
@@ -351,9 +351,8 @@ def sharded_ingest(
         else:
             coeffs_parts[j] = np.zeros(0, dtype=F32)
         pay1[j] = payload
-        # position-axis-minor contiguous component rows (the position-major
-        # (T_local+1, dim, 2) layout pads its minor 2 to a full TPU tile on
-        # every per-sweep gather; see ops.blocks.PrefixStats.r_t)
+        # position-axis-minor contiguous component rows (the per-sweep
+        # gathers then read long rows; see ops.blocks.PrefixStats.r_t)
         r_pieces.append(
             jax.device_put(
                 np.ascontiguousarray(

@@ -22,7 +22,7 @@ def mixture_sample_states(
 ) -> jax.Array:
     """(B,) int32 per-block states (padded blocks get state 0; mask later).
 
-    Runs in transposed (K, B) layout (block axis minor, TPU-tile friendly)."""
+    Runs in transposed (K, B) layout (block axis minor and contiguous)."""
     from hammlet_tpu.models.distributions import emission_log_weights_t
 
     log_e_t = emission_log_weights_t(

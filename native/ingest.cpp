@@ -196,8 +196,8 @@ int64_t hammlet_stream_read(void* h, int64_t skip_to, int64_t n, float* out) {
 // ---- record-stream CSV formatting (the hot output path) -------------------
 //
 // Formatting ~capacity integers per recorded sweep in Python costs more
-// than the whole TPU Gibbs sweep (measured 150 vs 698 sweeps/s with all
-// record streams enabled); these two batch formatters produce the
+// than the whole device Gibbs sweep with all record streams enabled; these
+// two batch formatters produce the
 // reference's CSV bytes (Records.hpp:155-235) for a whole scan chunk of
 // recorded sweeps in one call.
 

@@ -173,9 +173,10 @@ def test_seed_changes_run(tmp_path):
 
 def test_multi_chain_device_parallel(tmp_path, monkeypatch):
     """-M chains are device-parallel: each chain is pinned to its own local
-    device and runs concurrently (thread-local default_device; on real
-    TPU hardware N chromosomes then finish in ~the time of one — this CI
-    host has 2 cores under all 8 virtual devices, so the test asserts
+    device and runs concurrently (thread-local default_device; on N real
+    devices N chromosomes then finish in ~the time of one — the CPU test
+    backend shares a few host cores among all 8 virtual devices, so the
+    test asserts
     genuine concurrency + placement + byte-identity to sequential, not a
     wall-clock ratio)."""
     import time

@@ -195,13 +195,13 @@ def test_format_parity_with_reference(tmp_path, ref_binary):
     )
     rc = cli_main(
         ["-f", str(fn), "-s", "3", "-a", "-R", "1",
-         "-o", str(tmp_path / "tpu-"), ".csv",
+         "-o", str(tmp_path / "ours-"), ".csv",
          "-i", "M", "30", "0", "F", "30", "3", "-O", *streams, "-w"]
     )
     assert rc == 0
 
     seq_re = re.compile(r"^\d+:\d+(\t\d+:\d+)*$")
-    for who in ("ref", "tpu"):
+    for who in ("ref", "ours"):
         read = lambda s: (tmp_path / f"{who}-{s}.csv").read_text().splitlines()
 
         # sequences: one line per recorded sweep of SIZE:STATE tokens,
@@ -267,8 +267,8 @@ def test_format_parity_with_reference(tmp_path, ref_binary):
         return pos / pos.sum(axis=1, keepdims=True)
 
     ref = read_marginals(tmp_path / "ref-marginals.csv")
-    tpu = read_marginals(tmp_path / "tpu-marginals.csv")
-    assert ref.shape == tpu.shape
+    got = read_marginals(tmp_path / "ours-marginals.csv")
+    assert ref.shape == got.shape
 
 
 def test_record_stream_bytes_golden(tmp_path):

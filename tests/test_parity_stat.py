@@ -60,7 +60,7 @@ def test_parity_univariate_3state(tmp_path, ref_bin):
     f = tmp_path / "d.csv"
     np.savetxt(f, data)
     scheme = "M 100 0 F 100 0 F 200 2".split()
-    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "tpu")
+    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "ours")
     rep = parity_report(ref_bin, str(f), str(tmp_path), scheme, ["3"], ours)
     _assert_within_envelope(rep)
 
@@ -71,7 +71,7 @@ def test_parity_univariate_sharded(tmp_path, ref_bin):
     f = tmp_path / "d.csv"
     np.savetxt(f, data)
     scheme = "M 100 0 F 100 0 F 200 2".split()
-    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "tpu8", n_devices=8)
+    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "ours8", n_devices=8)
     rep = parity_report(ref_bin, str(f), str(tmp_path), scheme, ["3"], ours)
     _assert_within_envelope(rep)
 
@@ -99,7 +99,7 @@ def test_parity_coriell_5state(tmp_path, ref_bin):
     f = tmp_path / "coriell.csv"
     np.savetxt(f, data)
     scheme = "M 100 0 F 100 0 F 200 2".split()
-    ours = _run_ours(tmp_path, str(f), scheme, ["5"], "tpu5")
+    ours = _run_ours(tmp_path, str(f), scheme, ["5"], "ours5")
     rep = parity_report(ref_bin, str(f), str(tmp_path), scheme, ["5"], ours)
     _assert_within_envelope(rep)
 
@@ -124,7 +124,7 @@ def test_parity_wgs_chain(tmp_path, ref_bin):
     f = tmp_path / "wgs.csv"
     np.savetxt(f, data)
     scheme = "M 60 0 F 60 0 F 120 2".split()
-    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "tpuw")
+    ours = _run_ours(tmp_path, str(f), scheme, ["3"], "oursw")
     rep = parity_report(ref_bin, str(f), str(tmp_path), scheme, ["3"], ours)
     _assert_within_envelope(rep)
 
@@ -147,6 +147,6 @@ def test_parity_multivariate(tmp_path, ref_bin):
     np.savetxt(f, data.reshape(-1))  # row-major stream, dim values per pos
     scheme = "M 80 0 F 80 0 F 160 2".split()
     s_args = ["C", "2", "2"]
-    ours = _run_ours(tmp_path, str(f), scheme, s_args, "tpu2")
+    ours = _run_ours(tmp_path, str(f), scheme, s_args, "ours2")
     rep = parity_report(ref_bin, str(f), str(tmp_path), scheme, s_args, ours)
     _assert_within_envelope(rep)

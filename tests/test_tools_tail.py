@@ -89,15 +89,15 @@ def test_combine_counts_matches_reference_tool(tmp_path, ref_tool, monkeypatch):
         cwd=tmp_path, check=True, capture_output=True,
     )
     monkeypatch.chdir(tmp_path)
-    rc = combine_counts_main(["-i", "+", "a", "b", "-o", "tpu"])
+    rc = combine_counts_main(["-i", "+", "a", "b", "-o", "ours"])
     assert rc == 0
 
     for suff in ("-size.csv",):
-        assert (tmp_path / f"tpu{suff}").read_text() == (
+        assert (tmp_path / f"ours{suff}").read_text() == (
             tmp_path / f"ref{suff}"
         ).read_text()
     for suff in ("-pos.csv.gz", "-count.csv.gz"):
-        ours = gzip.open(tmp_path / f"tpu{suff}", "rt").read().split()
+        ours = gzip.open(tmp_path / f"ours{suff}", "rt").read().split()
         want = gzip.open(tmp_path / f"ref{suff}", "rt").read().split()
         assert ours == want, suff
 

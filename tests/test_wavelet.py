@@ -8,9 +8,11 @@ from hammlet_tpu.golden import reference as gold
 from hammlet_tpu.ops.wavelet import breakpoint_weights, maxlet_transform
 
 SIZES = [2, 3, 4, 5, 7, 8, 15, 16, 17, 100, 255, 256, 1000, 4096, 10000]
+#: sizes spanning many 2^13-position chunks, some with a ragged tail
+LARGE_SIZES = [8192, 8193, 20000, 65536, 100000]
 
 
-@pytest.mark.parametrize("T", SIZES)
+@pytest.mark.parametrize("T", SIZES + LARGE_SIZES)
 def test_maxlet_bitexact_univariate(T):
     rng = np.random.default_rng(T)
     data = rng.normal(0, 1, size=(T, 1)).astype(np.float32) * 10
@@ -19,7 +21,7 @@ def test_maxlet_bitexact_univariate(T):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("T", [4, 7, 64, 100, 1000])
+@pytest.mark.parametrize("T", [4, 7, 64, 100, 1000, 30000])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_maxlet_bitexact_multivariate(T, dim):
     rng = np.random.default_rng(T * 31 + dim)
@@ -60,3 +62,27 @@ def test_weights_monotone_threshold_blocks():
     starts_lo = set(gold.block_starts(w, 0.5).tolist())
     starts_hi = set(gold.block_starts(w, 3.0).tolist())
     assert starts_hi <= starts_lo
+
+
+def test_ingest_device_matches_host_ingest():
+    """The device ingest (XLA transform, weights, argsort ranking, in-cell
+    prefix sums) against the host ingest on a T spanning several prefix
+    cells: weights and ranking bit-identical, noise and prefix close."""
+    from hammlet_tpu.ops.blocks import DEVICE_CELL_BITS
+    from hammlet_tpu.runner import ingest, ingest_device
+
+    T = 5 * (1 << DEVICE_CELL_BITS) + 1234
+    rng = np.random.default_rng(11)
+    mu = np.repeat(rng.choice([0.0, 2.0, -2.0], T // 500 + 1), 500)[:T]
+    data = (mu + rng.normal(0, 1, T)).astype(np.float32)
+    dev = ingest_device(data)
+    host = ingest(data)
+    np.testing.assert_array_equal(np.asarray(dev.weights), host.weights_host)
+    np.testing.assert_array_equal(
+        np.asarray(dev.ranked.pos_by_rank), np.asarray(host.ranked.pos_by_rank)
+    )
+    np.testing.assert_array_equal(
+        np.asarray(dev.ranked.neg_w_sorted),
+        np.asarray(host.ranked.neg_w_sorted),
+    )
+    np.testing.assert_allclose(dev.noise_std, host.noise_std, rtol=1e-6)
